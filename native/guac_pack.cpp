@@ -2,7 +2,7 @@
 //
 // Takes the (filtered) columnar read arrays plus a tile's loci and emits
 // the dense [L, D] pileup tensors (the LocusTile fields) in one pass —
-// the C++ counterpart of guacamole_tpu/pack/columnar.py + the shared
+// the C++ counterpart of guacamole/pack/columnar.py + the shared
 // tile-assembly stage in pack/fast.py (cross-checked in
 // tests/test_pack_columnar.py / test_runtime.py).
 //
@@ -152,7 +152,7 @@ struct PackedTile {
   // ll_qvals in the high nibble, 0xFF for empty slots. Halves the
   // likelihood screens' H2D (and HBM-read) volume; the kernels decode
   // the same f32 qual values, so candidate flags are bit-identical
-  // (tests/test_pallas_kernels.py).
+  // (tests/test_screen_kernels.py).
   raw_vector<uint8_t> ll_pack8;
   std::vector<uint8_t> ll_qvals;
   // Mode 3 only: per-element read MAPQ (for alignment-included
@@ -164,7 +164,7 @@ struct PackedTile {
   // Screen-mode by-product: per-(locus, allele) element counts over the
   // SAME elements the CSR nibbles encode (id < K, MAPQ-passing). The host
   // fallback screen (no accelerator) thresholds these directly instead of
-  // shipping CSR to a device; the TPU path ignores them.
+  // shipping CSR to a device; the device path ignores them.
   std::vector<int32_t> counts;  // [L, K] (csr mode only)
   // Host form of the germline genotype-likelihood screen (requested via
   // ll_screen_margin > 0 on csr tiles): [L] 0/1 candidate flags from the
@@ -1050,7 +1050,7 @@ void* guac_pack_tile(
           // argmax pair cannot contain one) — and without this guard
           // the eager and lazy fills disagree when every score is -inf
           // (IEEE -inf >= -inf is true; found by the round-5 fuzz
-          // campaign). Same guard in the XLA/Pallas kernels.
+          // campaign). Same guard in the XLA kernels.
           bool has_var = false;
           for (int32_t i = 0; i < na; i++)
             if (sa[i] && iv[i]) {

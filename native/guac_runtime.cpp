@@ -1,6 +1,6 @@
-// guac_runtime: native host runtime for guacamole_tpu.
+// guac_runtime: native host runtime for guacamole.
 //
-// Performs the host-side hot path of the TPU variant-calling pipeline:
+// Performs the host-side hot path of the variant-calling pipeline:
 //   1. BGZF block decompression (multithreaded, zlib)
 //   2. BAM record parsing into columnar arrays
 //   3. MD-tag expansion into per-read reference bases
@@ -12,9 +12,9 @@
 // with guac_free_reads().
 //
 // Behavioral contract matches the Python reference implementations in
-// guacamole_tpu/gio/bam.py and guacamole_tpu/pack/events.py (cross-checked
+// guacamole/gio/bam.py and guacamole/pack/events.py (cross-checked
 // in tests/test_runtime.py); the event classification rules mirror the
-// original pileup semantics (cf. /root/reference
+// original pileup semantics (cf. upstream
 // .../pileup/PileupElement.scala:68-135).
 
 #include <zlib.h>
@@ -214,7 +214,7 @@ static const bool OP_CONSUMES_REF[9] = {true,  false, true, true, false,
                                         false, false, true, true};
 enum { OP_M = 0, OP_I, OP_D, OP_N, OP_S, OP_H, OP_P, OP_EQ, OP_X };
 
-// event kinds (must match guacamole_tpu.pack.events.EventKind)
+// event kinds (must match guacamole.pack.events.EventKind)
 enum { EV_BASE = 0, EV_INSERTION, EV_DELETION, EV_MID_DELETION, EV_CLIPPED };
 
 struct Special {
@@ -902,7 +902,7 @@ struct BgzfStream {
 };
 
 // Decode only the records covered by BGZF virtual-offset chunks (from a
-// .bai query; the TPU-native analog of the reference's BAM-index pushdown,
+// .bai query; the analog of the reference's BAM-index pushdown,
 // Read.scala:395-406). Only the chunks' byte ranges are read and inflated;
 // memory is O(header + largest chunk), not O(file).
 static Reads* decode_bam_chunks(const char* path, int threads,

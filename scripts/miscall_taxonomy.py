@@ -5,7 +5,7 @@ run and every germline-contaminated somatic call, replay the locus
 through the EXACT per-pileup oracle (the reference semantics:
 germline_standard.call_variants_at_locus /
 somatic find_potential_variant_at_locus,
-cf. /root/reference .../commands/GermlineStandardCaller.scala:90-124 and
+cf. upstream .../commands/GermlineStandardCaller.scala:90-124 and
 SomaticStandardCaller.scala:162-245) and classify:
 
   oracle-agrees  — the exact reference semantics produce the same
@@ -59,21 +59,21 @@ def band_distance(pos, bands):
 
 
 def main():
-    from guacamole_tpu.platform import configure_platform
+    from guacamole.platform import configure_platform
 
     configure_platform()
-    from guacamole_tpu.callers.germline_standard import (
+    from guacamole.callers.germline_standard import (
         call_variants_at_locus,
     )
-    from guacamole_tpu.callers.somatic_standard import (
+    from guacamole.callers.somatic_standard import (
         find_potential_variant_at_locus,
     )
-    from guacamole_tpu.callers.source import ReadSource
-    from guacamole_tpu.filters.genotype_filters import (
+    from guacamole.callers.source import ReadSource
+    from guacamole.filters.genotype_filters import (
         apply_genotype_filters,
     )
-    from guacamole_tpu.runtime.columnar import decode_bam_columnar
-    from guacamole_tpu.utils.simulate import make_scale_fixture
+    from guacamole.runtime.columnar import decode_bam_columnar
+    from guacamole.utils.simulate import make_scale_fixture
 
     manifest = make_scale_fixture(SCALE_DIR)
     truth = manifest["truth"]
@@ -87,12 +87,12 @@ def main():
     som_vcf = os.path.join(tmp, "som.vcf")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli", "germline-standard",
+        [sys.executable, "-m", "guacamole.cli", "germline-standard",
          "--reads", germ_bam, "--min-likelihood", "40", "--out", gs_vcf],
         check=True, env=env, capture_output=True, timeout=900,
     )
     subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli", "somatic-standard",
+        [sys.executable, "-m", "guacamole.cli", "somatic-standard",
          "--tumor-reads", tumor_bam, "--normal-reads", normal_bam,
          "--odds", "20", "--out", som_vcf],
         check=True, env=env, capture_output=True, timeout=900,

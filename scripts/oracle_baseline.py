@@ -31,8 +31,8 @@ INT_MAX = 2**31 - 1
 
 
 def _load(path, parse_loci, vendor_checks=False):
-    from guacamole_tpu.gio.load import load_read_set
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole.gio.load import load_read_set
+    from guacamole.reads.read import InputFilters
 
     filters = InputFilters.create(
         overlaps_loci=parse_loci("all"),
@@ -46,7 +46,7 @@ def _load(path, parse_loci, vendor_checks=False):
 
 
 def _write_and_check(records, contig_lengths, golden_name, tmp):
-    from guacamole_tpu.callers.common import write_variants
+    from guacamole.callers.common import write_variants
 
     out = os.path.join(tmp, golden_name)
     write_variants(records, out, contig_lengths=contig_lengths)
@@ -57,10 +57,10 @@ def _write_and_check(records, contig_lengths, golden_name, tmp):
 
 
 def run_germline_threshold(tmp):
-    from guacamole_tpu.callers.germline_threshold import call_variants_at_locus
-    from guacamole_tpu.engine import pileup_flat_map
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
+    from guacamole.callers.germline_threshold import call_variants_at_locus
+    from guacamole.engine import pileup_flat_map
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_uniformly
 
     t0 = time.time()
     reads, lengths = _load(
@@ -88,14 +88,14 @@ def run_germline_threshold(tmp):
 
 
 def run_germline_standard(tmp):
-    from guacamole_tpu.callers.germline_standard import (
+    from guacamole.callers.germline_standard import (
         call_variants_at_locus,
         called_allele_to_vcf_record,
     )
-    from guacamole_tpu.engine import pileup_flat_map
-    from guacamole_tpu.filters.genotype_filters import apply_genotype_filters
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
+    from guacamole.engine import pileup_flat_map
+    from guacamole.filters.genotype_filters import apply_genotype_filters
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_uniformly
 
     t0 = time.time()
     reads, lengths = _load(
@@ -126,18 +126,18 @@ def run_germline_standard(tmp):
 
 
 def run_somatic_standard(tmp):
-    from guacamole_tpu.callers.somatic_standard import (
+    from guacamole.callers.somatic_standard import (
         called_somatic_allele_to_vcf_record,
         find_potential_variant_at_locus,
     )
-    from guacamole_tpu.engine import pileup_flat_map_two
-    from guacamole_tpu.filters.somatic_filters import (
+    from guacamole.engine import pileup_flat_map_two
+    from guacamole.filters.somatic_filters import (
         apply_somatic_filters,
         somatic_minimum_alternate_read_depth,
         somatic_within_read_depth_range,
     )
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_uniformly
 
     t0 = time.time()
     tumor, t_lengths = _load(

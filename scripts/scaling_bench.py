@@ -35,8 +35,8 @@ def main() -> int:
         cores = sorted(os.sched_getaffinity(0))
         os.sched_setaffinity(0, {cores[0]})
 
-    # Force the virtual CPU mesh (this is a sharding-efficiency harness;
-    # the ambient environment may pin JAX to a single TPU chip).
+    # Force the virtual CPU mesh (this is a sharding-efficiency harness,
+    # not a device measurement).
     os.environ["JAX_PLATFORMS"] = "cpu"
     flags = os.environ.get("XLA_FLAGS", "")
     if "host_platform_device_count" not in flags:
@@ -52,7 +52,7 @@ def main() -> int:
         pass
     import numpy as np
 
-    from guacamole_tpu.parallel.mesh import (
+    from guacamole.parallel.mesh import (
         ShardedBatch,
         loci_mesh,
         make_sharded_call_step,
@@ -168,8 +168,8 @@ def main() -> int:
     report = {
         "note": (
             "virtual CPU mesh: all shards share this host's physical cores, "
-            "so efficiency here reflects host oversubscription, not ICI "
-            "scaling; on a pod each shard is a dedicated chip"
+            "so efficiency here reflects host oversubscription, not device "
+            "scaling; on a multi-GPU host each shard is a dedicated card"
         ),
         "physical_cores": os.cpu_count(),
         "single_core_elements_per_s": single_core,

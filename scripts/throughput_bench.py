@@ -29,7 +29,7 @@ CHRM_BAM = "/root/reference/src/test/resources/chrM.sorted.bam"
 def replicate_contigs(cols, n_rep: int):
     """A ColumnarReads with the input's reads duplicated onto n_rep
     synthetic contigs (chrM0..chrM{n-1}); ragged data arrays are shared."""
-    from guacamole_tpu.runtime.columnar import ColumnarReads
+    from guacamole.runtime.columnar import ColumnarReads
 
     base = cols.take(np.arange(cols.n))  # normalize to start/end bounds form
     n = base.n
@@ -83,22 +83,22 @@ def main() -> int:
     p.add_argument("--iters", type=int, default=3)
     args = p.parse_args()
 
-    from guacamole_tpu.platform import configure_platform
+    from guacamole.platform import configure_platform
 
     configure_platform()
 
-    from guacamole_tpu.callers.common import load_read_source
-    from guacamole_tpu.callers.germline_standard import (
+    from guacamole.callers.common import load_read_source
+    from guacamole.callers.germline_standard import (
         call_variants as standard_call,
     )
-    from guacamole_tpu.callers.germline_threshold import (
+    from guacamole.callers.germline_threshold import (
         call_variants as threshold_call,
     )
-    from guacamole_tpu.callers.source import ReadSource
-    from guacamole_tpu.loci.lociset import LociSetBuilder
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole.callers.source import ReadSource
+    from guacamole.loci.lociset import LociSetBuilder
+    from guacamole.loci.partition import partition_loci_uniformly
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.reads.read import InputFilters
 
     filters = InputFilters.create(
         overlaps_loci=parse_loci("all"), non_duplicate=True, has_mdtag=True
@@ -116,7 +116,7 @@ def main() -> int:
         "workload": f"chrM x{args.replicas} contigs, {cols.n} reads",
         "tasks": args.tasks,
     }
-    from guacamole_tpu.callers.somatic_standard import (
+    from guacamole.callers.somatic_standard import (
         call_variants as somatic_call,
     )
 

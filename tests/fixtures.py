@@ -3,7 +3,7 @@
 
 from typing import Optional, Sequence
 
-from guacamole_tpu.reads.read import (
+from guacamole.reads.read import (
     MappedRead,
     MateAlignmentProperties,
     PairedRead,

@@ -1,7 +1,7 @@
 """ADAM Parquet I/O tests.
 
 Mirrors the reference's ADAM round-trip test ("load read from ADAM",
-/root/reference .../reads/ReadSetSuite.scala:88-109): save reads loaded
+upstream .../reads/ReadSetSuite.scala:88-109): save reads loaded
 from mdtagissue.sam as ADAM Parquet, reload through the generic loader,
 and check counts/filters/token propagation. Plus genotype Parquet output
 (Common.scala:295-303 adamParquetSave equivalent).
@@ -11,15 +11,15 @@ import pytest
 
 pytest.importorskip("pyarrow")
 
-from guacamole_tpu.gio.adam import (
+from guacamole.gio.adam import (
     read_adam,
     read_genotypes_parquet,
     write_adam,
     write_genotypes_parquet,
 )
-from guacamole_tpu.gio.load import load_read_set, load_reads
-from guacamole_tpu.gio.vcf import VcfRecord
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.gio.load import load_read_set, load_reads
+from guacamole.gio.vcf import VcfRecord
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 
@@ -112,7 +112,7 @@ def test_genotype_parquet_round_trip(tmp_path):
 
 
 def test_write_variants_dispatches_parquet(tmp_path):
-    from guacamole_tpu.callers.common import write_variants
+    from guacamole.callers.common import write_variants
 
     records = [
         VcfRecord(contig="chrM", start=10, ref="C", alt="T", read_depth=5,
@@ -151,7 +151,7 @@ def test_avro_schema_metadata_embedded(adam_path, tmp_path):
         assert f["default"] is None
 
     # Genotype output carries its schema too.
-    from guacamole_tpu.gio.adam import write_genotypes_parquet
+    from guacamole.gio.adam import write_genotypes_parquet
 
     class _Rec:
         contig = "chr1"

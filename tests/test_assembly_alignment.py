@@ -3,15 +3,15 @@
 
 import pytest
 
-from guacamole_tpu.alignment.affine_gap import (
+from guacamole.alignment.affine_gap import (
     AlignmentState,
     ReadAlignment,
     align,
     score_alignment_paths,
 )
-from guacamole_tpu.assembly.debruijn import DeBruijnGraph
-from guacamole_tpu.concordance import compute_concordance
-from guacamole_tpu.gio.vcf import VcfRecord
+from guacamole.assembly.debruijn import DeBruijnGraph
+from guacamole.concordance import compute_concordance
+from guacamole.gio.vcf import VcfRecord
 
 
 class TestDeBruijnGraph:
@@ -186,7 +186,7 @@ class TestConcordance:
         from conftest import resource_path
 
         truth = resource_path("truth.chr20.vcf")
-        from guacamole_tpu.gio.vcf import read_vcf
+        from guacamole.gio.vcf import read_vcf
 
         variants = list(read_vcf(truth))
         assert variants
@@ -247,7 +247,7 @@ class TestConcordance:
     def test_print_concordance_reference_format(self, tmp_path, capsys):
         """printGenotypeConcordance emits the tab-separated header + values
         (Concordance.scala:127-128)."""
-        from guacamole_tpu.concordance import print_genotype_concordance
+        from guacamole.concordance import print_genotype_concordance
 
         truth = tmp_path / "truth.vcf"
         truth.write_text(

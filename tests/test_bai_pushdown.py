@@ -9,10 +9,10 @@ import shutil
 import numpy as np
 import pytest
 
-from guacamole_tpu.callers.common import bai_chunks_for_loci
-from guacamole_tpu.gio.bai import BamIndex, build_bam_index, optimize_chunks
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.runtime.columnar import (
+from guacamole.callers.common import bai_chunks_for_loci
+from guacamole.gio.bai import BamIndex, build_bam_index, optimize_chunks
+from guacamole.loci.lociset import parse_loci
+from guacamole.runtime.columnar import (
     decode_bam_columnar,
     filter_columnar,
     native_available,

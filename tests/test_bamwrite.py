@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from guacamole_tpu.gio.bamwrite import sam_to_bam, write_bam_from_columnar
-from guacamole_tpu.runtime.columnar import (
+from guacamole.gio.bamwrite import sam_to_bam, write_bam_from_columnar
+from guacamole.runtime.columnar import (
     decode_bam_columnar,
     decode_sam_columnar,
     native_available,
@@ -73,9 +73,9 @@ def test_sam_to_bam_roundtrip(fixture, tmp_path):
 def test_written_bam_supports_index_pushdown(tmp_path):
     """ensure_bam_index must index the written BAM, and a region query
     must return exactly the overlapping reads."""
-    from guacamole_tpu.callers.streaming import ensure_bam_index
-    from guacamole_tpu.gio.bai import BamIndex, optimize_chunks
-    from guacamole_tpu.runtime.native import decode_bam_native
+    from guacamole.callers.streaming import ensure_bam_index
+    from guacamole.gio.bai import BamIndex, optimize_chunks
+    from guacamole.runtime.native import decode_bam_native
 
     cols = decode_bam_columnar(resource_path("chrM.sorted.bam"))
     cols = cols.select(cols.is_mapped_mask).compact()
@@ -117,7 +117,7 @@ def test_cli_on_written_bam_matches_golden(tmp_path):
     out = str(tmp_path / "out.vcf")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli", "germline-threshold",
+        [sys.executable, "-m", "guacamole.cli", "germline-threshold",
          "--reads", bam, "--parallelism", "2", "--out", out],
         env=env, capture_output=True, text=True, timeout=600,
     )

@@ -1,5 +1,5 @@
-from guacamole_tpu.utils import bases as Bases
-from guacamole_tpu.utils import phred
+from guacamole.utils import bases as Bases
+from guacamole.utils import phred
 
 
 def test_standard_bases():

@@ -1,6 +1,6 @@
 import pytest
 
-from guacamole_tpu.reads.cigar import OP_D, OP_I, OP_M, OP_S, Cigar
+from guacamole.reads.cigar import OP_D, OP_I, OP_M, OP_S, Cigar
 
 
 def test_parse_simple():

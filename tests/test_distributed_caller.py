@@ -5,23 +5,23 @@ all three main callers (threshold / germline-standard / somatic)."""
 import jax
 import pytest
 
-from guacamole_tpu.callers.distributed import (
+from guacamole.callers.distributed import (
     call_somatic_mesh,
     call_standard_mesh,
     call_variants_mesh,
 )
-from guacamole_tpu.callers.germline_standard import (
+from guacamole.callers.germline_standard import (
     call_variants as call_standard,
 )
-from guacamole_tpu.callers.germline_threshold import call_variants
-from guacamole_tpu.callers.somatic_standard import (
+from guacamole.callers.germline_threshold import call_variants
+from guacamole.callers.somatic_standard import (
     call_variants as call_somatic,
 )
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.loci.partition import partition_loci_uniformly
-from guacamole_tpu.parallel.mesh import loci_mesh
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.loci.partition import partition_loci_uniformly
+from guacamole.parallel.mesh import loci_mesh
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 
@@ -143,16 +143,16 @@ def test_mesh_variant_support_and_vaf_equal_sequential(resources_dir):
     equal the sequential path (one shard_map step per tile group)."""
     import jax
 
-    from guacamole_tpu.callers.common import load_read_source
-    from guacamole_tpu.callers.variant_support import (
+    from guacamole.callers.common import load_read_source
+    from guacamole.callers.variant_support import (
         loci_from_variants,
         pileup_allele_counts,
     )
-    from guacamole_tpu.callers.vaf_histogram import variant_loci_from_reads
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
-    from guacamole_tpu.parallel.mesh import loci_mesh
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole.callers.vaf_histogram import variant_loci_from_reads
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_uniformly
+    from guacamole.parallel.mesh import loci_mesh
+    from guacamole.reads.read import InputFilters
 
     mesh = loci_mesh(jax.devices()[:8])
 

@@ -3,16 +3,16 @@ flatmap parallelism-invariance, multi-sample demux, windowFoldLoci)."""
 
 import pytest
 
-from guacamole_tpu.engine import (
+from guacamole.engine import (
     TaskStats,
     pileup_flat_map,
     pileup_flat_map_multiple,
     pileup_flat_map_two,
     window_fold_loci,
 )
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.loci.partition import partition_loci_uniformly
-from guacamole_tpu.utils import bases as Bases
+from guacamole.loci.lociset import parse_loci
+from guacamole.loci.partition import partition_loci_uniformly
+from guacamole.utils import bases as Bases
 
 from fixtures import make_test_read
 

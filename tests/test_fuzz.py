@@ -8,17 +8,17 @@ the threshold/Bayesian calls match the per-locus oracle exactly."""
 import numpy as np
 import pytest
 
-from guacamole_tpu.callers.germline_standard import (
+from guacamole.callers.germline_standard import (
     call_variants_at_locus as standard_at_locus,
 )
-from guacamole_tpu.callers.germline_threshold import (
+from guacamole.callers.germline_threshold import (
     call_variants_at_locus as threshold_at_locus,
 )
-from guacamole_tpu.pack.fast import pack_tile_fast
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.reads.read import make_read
-from guacamole_tpu.runtime.columnar import columnar_from_reads
-from guacamole_tpu.pack.columnar import pack_tile_columnar
+from guacamole.pack.fast import pack_tile_fast
+from guacamole.pileup.pileup import Pileup
+from guacamole.reads.read import make_read
+from guacamole.runtime.columnar import columnar_from_reads
+from guacamole.pack.columnar import pack_tile_columnar
 
 from test_pack import assert_tile_matches_oracle
 from test_pack_fast import assert_tiles_equal
@@ -126,8 +126,8 @@ def test_fuzz_tile_matches_oracle(seed):
 def test_fuzz_caller_kernels_match_oracle(seed):
     """Per-locus calls computed from packed tensors must equal the oracle's
     per-pileup calls at every covered locus."""
-    from guacamole_tpu.callers.germline_threshold import call_tile
-    from guacamole_tpu.callers.source import ReadSource
+    from guacamole.callers.germline_threshold import call_tile
+    from guacamole.callers.source import ReadSource
 
     rng = np.random.RandomState(seed)
     region = 100
@@ -161,10 +161,10 @@ def test_fuzz_native_screen_mode_matches_full(seed):
     CIGAR/MD/quality reads: counts equal per-row bincounts of the full
     grid, the native candidate rule equals the device rule's numpy twin,
     and the inline likelihood screen covers every exact-confirm call."""
-    from guacamole_tpu.callers.germline_standard import calls_from_tile_rows
-    from guacamole_tpu.ops.dispatch import host_counts_candidates
-    from guacamole_tpu.pack.columnar import pack_tile_columnar
-    from guacamole_tpu.runtime.columnar import native_available
+    from guacamole.callers.germline_standard import calls_from_tile_rows
+    from guacamole.ops.dispatch import host_counts_candidates
+    from guacamole.pack.columnar import pack_tile_columnar
+    from guacamole.runtime.columnar import native_available
 
     if not native_available():
         pytest.skip("native runtime not built")
@@ -198,7 +198,7 @@ def test_fuzz_native_screen_mode_matches_full(seed):
     np.testing.assert_array_equal(screen.is_variant, full.is_variant)
 
     # Native candidate rule == its numpy twin, both thresholds.
-    from guacamole_tpu.runtime.native import counts_screen_native
+    from guacamole.runtime.native import counts_screen_native
 
     for threshold in (None, 8):
         np.testing.assert_array_equal(
@@ -232,9 +232,9 @@ def test_fuzz_screen_gq_gate_is_superset(seed):
     claim of guac_pack.cpp's normalized-probability bound (1-phred safety
     band over the exact confirm's own genotype set), for both the fused
     (skip_nibbles) and two-phase fills."""
-    from guacamole_tpu.callers.germline_standard import calls_from_tile_rows
-    from guacamole_tpu.pack.columnar import pack_tile_columnar
-    from guacamole_tpu.runtime.columnar import native_available
+    from guacamole.callers.germline_standard import calls_from_tile_rows
+    from guacamole.pack.columnar import pack_tile_columnar
+    from guacamole.runtime.columnar import native_available
 
     if not native_available():
         pytest.skip("native runtime not built")

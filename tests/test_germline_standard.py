@@ -5,16 +5,16 @@ import math
 
 import pytest
 
-from guacamole_tpu.callers.germline_standard import (
+from guacamole.callers.germline_standard import (
     call_variants,
     call_variants_at_locus,
 )
-from guacamole_tpu.filters.genotype_filters import apply_genotype_filters
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.loci.partition import partition_loci_uniformly
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.filters.genotype_filters import apply_genotype_filters
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.loci.partition import partition_loci_uniformly
+from guacamole.pileup.pileup import Pileup
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 from fixtures import make_test_read
@@ -154,9 +154,9 @@ def test_tile_row_confirm_bitwise():
     object packers."""
     import dataclasses
 
-    from guacamole_tpu.callers.common import load_read_source
-    from guacamole_tpu.callers.germline_standard import calls_from_tile_row
-    from guacamole_tpu.callers.source import ReadSource
+    from guacamole.callers.common import load_read_source
+    from guacamole.callers.germline_standard import calls_from_tile_row
+    from guacamole.callers.source import ReadSource
 
     filters = InputFilters.create(
         overlaps_loci=parse_loci("all"), non_duplicate=True, has_mdtag=True
@@ -191,7 +191,7 @@ def test_native_likelihood_screen_matches_oracle():
     """The device genotype-likelihood screen (native columnar path, csr/ll
     tiles) must reproduce the exact per-locus oracle, including f64
     likelihood values."""
-    from guacamole_tpu.callers.common import load_read_source
+    from guacamole.callers.common import load_read_source
 
     filters = InputFilters.create(
         overlaps_loci=parse_loci("all"), non_duplicate=True, has_mdtag=True
@@ -223,15 +223,15 @@ def test_native_likelihood_screen_matches_oracle():
 def test_prefilter_min_likelihood_order_equivalent(resources_dir):
     """Emission-time min-likelihood prefiltering must equal filtering
     after the fact when the chain's earlier filters are inert."""
-    from guacamole_tpu.callers.germline_standard import call_variants
-    from guacamole_tpu.callers.source import ReadSource
-    from guacamole_tpu.filters.genotype_filters import (
+    from guacamole.callers.germline_standard import call_variants
+    from guacamole.callers.source import ReadSource
+    from guacamole.filters.genotype_filters import (
         apply_genotype_filters,
     )
-    from guacamole_tpu.gio.load import load_read_set
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole.gio.load import load_read_set
+    from guacamole.loci.partition import partition_loci_uniformly
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.reads.read import InputFilters
 
     from conftest import resource_path
 

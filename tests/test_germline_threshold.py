@@ -1,21 +1,21 @@
 """germline-threshold caller tests.
 
 Per-locus expectations ported from the reference suite
-(cf. /root/reference .../commands/GermlineThresholdCallerSuite.scala), plus
+(cf. upstream .../commands/GermlineThresholdCallerSuite.scala), plus
 tile-path equivalence and parallelism-invariance checks.
 """
 
 import pytest
 
-from guacamole_tpu.callers.germline_threshold import (
+from guacamole.callers.germline_threshold import (
     call_variants,
     call_variants_at_locus,
 )
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.loci.partition import partition_loci_uniformly
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.loci.partition import partition_loci_uniformly
+from guacamole.pileup.pileup import Pileup
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 from fixtures import make_test_read
@@ -167,7 +167,7 @@ class TestTilePathEquivalence:
 def test_compact_cap_overflow_falls_back(chrm_cached, monkeypatch):
     """With the compaction cap forced below the candidate count, the full
     [L, K] refetch fallback must yield identical calls."""
-    import guacamole_tpu.callers.germline_threshold as gt
+    import guacamole.callers.germline_threshold as gt
 
     reads = [r for r in chrm_cached.mapped_reads if r.start < 2000]
     loci = parse_loci("chrM:0-2000").result()
@@ -192,14 +192,14 @@ def test_streaming_matches_whole_file():
     import os
     import tempfile
 
-    from guacamole_tpu.callers.common import load_read_source
-    from guacamole_tpu.callers.germline_threshold import (
+    from guacamole.callers.common import load_read_source
+    from guacamole.callers.germline_threshold import (
         call_variants,
         call_variants_streaming,
     )
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_uniformly
+    from guacamole.reads.read import InputFilters
 
     filters = InputFilters.create(
         overlaps_loci=parse_loci("all"), non_duplicate=True, has_mdtag=True
@@ -242,11 +242,11 @@ def test_streaming_matches_whole_file():
 def test_max_alleles_above_nibble_range():
     """K > 15 cannot use 4-bit encodings; the dispatch layer must fall
     back to the unpacked counting kernel instead of asserting."""
-    from guacamole_tpu.callers.common import load_read_source
-    from guacamole_tpu.callers.germline_threshold import call_variants
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole.callers.common import load_read_source
+    from guacamole.callers.germline_threshold import call_variants
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_uniformly
+    from guacamole.reads.read import InputFilters
 
     filters = InputFilters.create(
         overlaps_loci=parse_loci("all"), non_duplicate=True, has_mdtag=True

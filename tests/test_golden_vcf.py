@@ -28,7 +28,7 @@ GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 def run_cli(args, out_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     result = subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli"] + args + ["--out", out_path],
+        [sys.executable, "-m", "guacamole.cli"] + args + ["--out", out_path],
         env=env,
         capture_output=True,
         text=True,
@@ -159,7 +159,7 @@ def run_cli_raw(args):
     differently: --output / --local-out)."""
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     result = subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli"] + args,
+        [sys.executable, "-m", "guacamole.cli"] + args,
         env=env,
         capture_output=True,
         text=True,
@@ -319,7 +319,7 @@ def _resolve_reference_flags(decls, class_name):
     return flags
 
 
-def test_reference_flag_parity():
+def test_reference_flag_parity(resources_dir):
     """Every CLI option the reference's args4j traits declare must be
     accepted by the corresponding command here. The reference flag sets
     are DERIVED from the reference source at test time (args4j
@@ -328,7 +328,7 @@ def test_reference_flag_parity():
     (--out-chunks, --fragment-length) parse but have no effect; deliberate
     omissions are listed in DELIBERATE_FLAG_OMISSIONS with rationale. The
     reverse direction (extensions like --tile-size) is allowed."""
-    from guacamole_tpu import cli
+    from guacamole import cli
 
     decls = _reference_arg_decls()
     command_to_class = {
@@ -393,7 +393,7 @@ def test_cli_error_reporting(tmp_path):
 
     def run(extra):
         return subprocess.run(
-            [sys.executable, "-m", "guacamole_tpu.cli", "germline-threshold",
+            [sys.executable, "-m", "guacamole.cli", "germline-threshold",
              "--reads", "/nonexistent.bam", "--out", str(tmp_path / "x.vcf")]
             + extra,
             env=env, capture_output=True, text=True, timeout=300,
@@ -422,7 +422,7 @@ def test_truth_concordance_through_cli(resources_dir, tmp_path):
     )
     out2 = str(tmp_path / "g.vcf")
     result = subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli", "germline-threshold",
+        [sys.executable, "-m", "guacamole.cli", "germline-threshold",
          "--reads", resource_path("chrM.sorted.bam"),
          "--truth", truth_vcf,
          "--out", out2],
@@ -453,7 +453,7 @@ def test_germline_threshold_adam016_header_compat(resources_dir, tmp_path):
         ],
         out,
     )
-    from guacamole_tpu.gio.vcf import ADAM016_HEADER_LINES
+    from guacamole.gio.vcf import ADAM016_HEADER_LINES
 
     with open(out) as f:
         lines = f.read().splitlines()

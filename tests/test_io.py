@@ -1,19 +1,19 @@
 """I/O layer tests against the real SAM/BAM/FASTA fixtures.
 
 Expected counts ported from the reference test suite behaviors
-(cf. /root/reference .../ReadSetSuite.scala:69-86 etc.).
+(cf. upstream .../ReadSetSuite.scala:69-86 etc.).
 """
 
 import os
 
 import pytest
 
-from guacamole_tpu.gio.bam import BamFile
-from guacamole_tpu.gio.bgzf import BgzfReader, BgzfWriter
-from guacamole_tpu.gio.fasta import ReferenceGenome, get_gc_fraction
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.gio.bam import BamFile
+from guacamole.gio.bgzf import BgzfReader, BgzfWriter
+from guacamole.gio.fasta import ReferenceGenome, get_gc_fraction
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 

@@ -1,20 +1,20 @@
 """Closed-form genotype likelihood tests.
 
 Table-driven expectations ported from the reference suite
-(cf. /root/reference .../likelihood/LikelihoodSuite.scala:58-211).
+(cf. upstream .../likelihood/LikelihoodSuite.scala:58-211).
 """
 
 import math
 
 import pytest
 
-from guacamole_tpu.likelihood import (
+from guacamole.likelihood import (
     likelihood_of_genotype,
     likelihoods_of_all_possible_genotypes_from_pileup,
     probability_correct_ignoring_alignment,
 )
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.variants.allele import Allele, Genotype
+from guacamole.pileup.pileup import Pileup
+from guacamole.variants.allele import Allele, Genotype
 
 from fixtures import make_test_read
 
@@ -177,7 +177,7 @@ def test_normalized_likelihoods_sum_to_one():
 
 def test_evidence_from_pileup():
     # cf. AlleleEvidenceSuite.scala
-    from guacamole_tpu.variants.evidence import AlleleEvidence
+    from guacamole.variants.evidence import AlleleEvidence
 
     reads = [
         make_test_read("TCGATCGA", "8M", "1A6", 1, alignment_quality=30),
@@ -192,7 +192,7 @@ def test_evidence_from_pileup():
 
 
 def test_evidence_one_read_supports():
-    from guacamole_tpu.variants.evidence import AlleleEvidence
+    from guacamole.variants.evidence import AlleleEvidence
 
     reads = [
         make_test_read("TAGATCGA", "8M", "8", 1, alignment_quality=30),
@@ -207,7 +207,7 @@ def test_evidence_one_read_supports():
 
 
 def test_evidence_no_read_supports():
-    from guacamole_tpu.variants.evidence import AlleleEvidence
+    from guacamole.variants.evidence import AlleleEvidence
 
     reads = [
         make_test_read("TAGATCGA", "8M", "8", 1, alignment_quality=30),
@@ -227,7 +227,7 @@ def test_vectorized_pairs_bitwise_vs_scalar_oracle():
     pileups, with and without the alignment term, normalized and not."""
     import numpy as np
 
-    from guacamole_tpu.likelihood import (
+    from guacamole.likelihood import (
         likelihoods_of_genotypes,
         log_likelihoods_of_genotype_pairs,
         possible_genotypes_of_pileup,
@@ -316,7 +316,7 @@ def test_genotype_probs_rows_bitwise():
     alignment term."""
     import numpy as np
 
-    from guacamole_tpu.likelihood import (
+    from guacamole.likelihood import (
         genotype_probs_for_row,
         genotype_probs_for_rows,
     )
@@ -363,7 +363,7 @@ def test_zero_probability_jvm_log_semantics():
     (scalar oracle, per-row, batched rows) must agree bitwise."""
     import numpy as np
 
-    from guacamole_tpu.likelihood import (
+    from guacamole.likelihood import (
         genotype_probs_for_row,
         genotype_probs_for_rows,
         likelihoods_of_all_possible_genotypes_from_pileup,
@@ -406,7 +406,7 @@ def test_evidence_stats_batch_bitwise(seed):
     odd/even counts)."""
     import numpy as np
 
-    from guacamole_tpu.variants.evidence import AlleleEvidence
+    from guacamole.variants.evidence import AlleleEvidence
 
     rng = np.random.RandomState(seed)
     R, D = 37, 23
@@ -452,7 +452,7 @@ def test_deep_pileup_normalization_stays_finite():
 
     import numpy as np
 
-    from guacamole_tpu.likelihood import log_likelihoods_of_genotype_pairs
+    from guacamole.likelihood import log_likelihoods_of_genotype_pairs
 
     rng = np.random.default_rng(3)
     # depth 4000: full exp underflow; depth 1040: the subnormal-exp
@@ -478,7 +478,7 @@ def test_shallow_normalization_unchanged_by_fallback():
     plain sequential normalization and the helper agree bitwise."""
     import math
 
-    from guacamole_tpu.likelihood import _normalization_log_total
+    from guacamole.likelihood import _normalization_log_total
 
     lls = [-3.5, -1.25, -700.0, -0.5]
     total = 0.0
@@ -500,7 +500,7 @@ def test_phred_conversion_jvm_edge_semantics():
     emission prefilter."""
     import math
 
-    from guacamole_tpu.utils.phred import (
+    from guacamole.utils.phred import (
         error_probability_to_phred,
         success_probability_to_phred,
     )

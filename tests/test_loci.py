@@ -1,12 +1,12 @@
 import pytest
 
-from guacamole_tpu.loci.locimap import LociMapBuilder
-from guacamole_tpu.loci.lociset import LociSet, LociSetBuilder, parse_loci
-from guacamole_tpu.loci.partition import (
+from guacamole.loci.locimap import LociMapBuilder
+from guacamole.loci.lociset import LociSet, LociSetBuilder, parse_loci
+from guacamole.loci.partition import (
     partition_loci_by_approximate_depth,
     partition_loci_uniformly,
 )
-from guacamole_tpu.reads.read import make_read
+from guacamole.reads.read import make_read
 
 
 def lengths(**kw):

@@ -1,13 +1,13 @@
 import pytest
 
-from guacamole_tpu.reads.cigar import Cigar
-from guacamole_tpu.reads.mdtag import (
+from guacamole.reads.cigar import Cigar
+from guacamole.reads.mdtag import (
     MdTag,
     build_md_tag,
     get_reference,
     reference_from_reads,
 )
-from guacamole_tpu.reads.read import make_read
+from guacamole.reads.read import make_read
 
 
 def test_all_match():

@@ -4,15 +4,15 @@ The latency-tolerant device path replaces per-4096-loci-tile streaming
 (thousands of H2D/D2H hops — unusable over a high-latency link) with
 auto megatiles + slabbed screen launches: O(1) kernel launches and
 transfers per region. These tests pin the transfer COUNTS so a
-regression back to per-tile streaming is caught without TPU hardware.
+regression back to per-tile streaming is caught without a GPU.
 """
 
 import numpy as np
 import pytest
 
-from guacamole_tpu.ops import dispatch
-from guacamole_tpu.pack.columnar import iter_tiles_columnar
-from guacamole_tpu.runtime.columnar import decode_bam_columnar, native_available
+from guacamole.ops import dispatch
+from guacamole.pack.columnar import iter_tiles_columnar
+from guacamole.runtime.columnar import decode_bam_columnar, native_available
 
 from conftest import resource_path
 
@@ -135,8 +135,8 @@ def test_ll_pack8_wire_form_byte_budget(monkeypatch):
     """Likelihood-screen launch over a qual-binned tile must stage
     ~1 B/element (ll_pack8) + 4 B/row of flag words, not the 2 B/element
     uint16 form + 2K bool bytes per row."""
-    from guacamole_tpu.ops.dispatch import germline_screen_launch
-    from guacamole_tpu.pack.columnar import pack_tile_columnar
+    from guacamole.ops.dispatch import germline_screen_launch
+    from guacamole.pack.columnar import pack_tile_columnar
 
     monkeypatch.setenv("GUAC_HOST_SCREEN", "0")
     monkeypatch.setenv("GUAC_TRANSFER_STATS", "1")

@@ -7,20 +7,20 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.ops.kernels import (
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.ops.kernels import (
     genotype_log_likelihoods,
     probability_correct,
     tile_stats,
 )
-from guacamole_tpu.pack.tiles import pack_tiles
-from guacamole_tpu.parallel.mesh import (
+from guacamole.pack.tiles import pack_tiles
+from guacamole.parallel.mesh import (
     loci_mesh,
     sharded_call_step,
     stack_tiles,
 )
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 
@@ -37,7 +37,7 @@ def chrm_tiles(resources_dir):
     tiles = pack_tiles(reads, "chrM", loci, tile_size=512)
     # one tile per device; pad depth to a common bucket
     max_d = max(t.D for t in tiles)
-    from guacamole_tpu.pack.tiles import pad_tile_loci
+    from guacamole.pack.tiles import pad_tile_loci
 
     uniform = []
     for t in tiles[:8]:
@@ -108,54 +108,13 @@ def test_sharded_step_matches_single_device(chrm_tiles):
 
 
 def test_graft_entry_dryrun():
+    import os
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as graft
 
     fn, args = graft.entry()
     out = jax.jit(fn)(*args)
     assert out[0].shape == (128, 8)
     graft.dryrun_multichip(8)
-
-
-def test_mesh_csr_step_pallas_impl_matches_xla(chrm_tiles, monkeypatch):
-    """With kernel_path forced to pallas, the shard_map'd CSR screen (the
-    production mesh step) must produce identical counts/candidates — the
-    Pallas kernel composes with shard_map (interpret mode on the CPU
-    mesh)."""
-    from guacamole_tpu.ops import dispatch
-    from guacamole_tpu.parallel import mesh as mesh_mod
-
-    mesh = loci_mesh(jax.devices()[:8])
-    tiles = chrm_tiles
-
-    def run():
-        items = list(
-            mesh_mod.mesh_csr_screens(
-                [(t,) for t in tiles], tile_of=lambda it: it[0], mesh=mesh,
-                threshold_percent=8,
-            )
-        )
-        out = {}
-        for i, ((t,), pending) in enumerate(items):
-            res = pending.result()
-            out[i] = (np.asarray(res.counts), np.asarray(res.candidates))
-        return out
-
-    def reset():
-        dispatch.kernel_path.cache_clear()
-        dispatch.device_link_is_local.cache_clear()
-        mesh_mod._mesh_csr_step.cache_clear()
-
-    reset()
-    monkeypatch.setenv("GUAC_KERNEL_PATH", "xla")
-    ref = run()
-    reset()
-    monkeypatch.setenv("GUAC_KERNEL_PATH", "pallas")
-    got = run()
-    reset()
-    assert ref.keys() == got.keys() and len(ref) == len(tiles)
-    for i in ref:
-        np.testing.assert_array_equal(got[i][0], ref[i][0])
-        np.testing.assert_array_equal(got[i][1], ref[i][1])

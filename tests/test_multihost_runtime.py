@@ -8,7 +8,7 @@ This is the process-level counterpart of tests/test_multihost_sharding.py
 bootstrap (`jax.distributed.initialize`), the per-`process_index` shard
 assignment, and the DCN-merged record gather in parallel/multihost.py —
 the analog of the reference's driver+executors deployment
-(cf. /root/reference .../Command.scala:51-62, README.md:66-88).
+(cf. upstream .../Command.scala:51-62, README.md:66-88).
 """
 
 import os
@@ -41,7 +41,7 @@ def _spawn(argv, tmp_path, tag):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     log = open(tmp_path / f"{tag}.log", "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "guacamole_tpu.cli"] + argv,
+        [sys.executable, "-m", "guacamole.cli"] + argv,
         stdout=log,
         stderr=subprocess.STDOUT,
         env=env,
@@ -254,8 +254,8 @@ def test_two_process_structural_variant_equals_single(tmp_path):
 
 def test_multihost_helpers_single_process():
     """The helper API degrades to identity in single-process runs."""
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.parallel.multihost import (
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.parallel.multihost import (
         SINGLE,
         allreduce_counters,
         gather_bytes,
@@ -273,8 +273,8 @@ def test_multihost_helpers_single_process():
 
 def test_shard_expressions_cover_and_partition():
     """Per-process shard expressions partition the loci set exactly."""
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.parallel.multihost import (
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.parallel.multihost import (
         MultihostRuntime,
         shard_loci_expression,
     )
@@ -404,7 +404,7 @@ def test_recover_after_killed_process(tmp_path):
             env["GUAC_TEST_EXIT_BEFORE_MERGE"] = "1"
         log = open(tmp_path / f"rec-p{pid}.log", "w")
         proc = subprocess.Popen(
-            [sys.executable, "-m", "guacamole_tpu.cli"]
+            [sys.executable, "-m", "guacamole.cli"]
             + base
             + [
                 "--coordinator", coordinator,

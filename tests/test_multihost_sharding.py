@@ -9,14 +9,14 @@ duplication at the input layer)."""
 
 import pytest
 
-from guacamole_tpu.callers.germline_threshold import call_variants
-from guacamole_tpu.callers.germline_standard import (
+from guacamole.callers.germline_threshold import call_variants
+from guacamole.callers.germline_standard import (
     call_variants as call_standard,
 )
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.loci.partition import partition_loci_uniformly
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.loci.partition import partition_loci_uniformly
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 
@@ -108,10 +108,10 @@ def test_per_host_pushdown_decode_union_equals_whole_run(tmp_path):
     must equal a whole-file columnar run."""
     import shutil
 
-    from guacamole_tpu.callers.common import bai_chunks_for_loci
-    from guacamole_tpu.callers.source import ReadSource
-    from guacamole_tpu.gio.bai import build_bam_index
-    from guacamole_tpu.runtime.columnar import (
+    from guacamole.callers.common import bai_chunks_for_loci
+    from guacamole.callers.source import ReadSource
+    from guacamole.gio.bai import build_bam_index
+    from guacamole.runtime.columnar import (
         decode_bam_columnar,
         filter_columnar,
         native_available,
@@ -168,7 +168,7 @@ def test_load_shards_prefers_newest_run(tmp_path):
     import os
     import time
 
-    from guacamole_tpu.parallel.multihost import (
+    from guacamole.parallel.multihost import (
         load_shards,
         persist_shard,
         shard_dir,

@@ -5,11 +5,11 @@ qualities/strand/order)."""
 import numpy as np
 import pytest
 
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.pack.tiles import pack_tile, pack_tiles
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.pack.tiles import pack_tile, pack_tiles
+from guacamole.pileup.pileup import Pileup
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 from fixtures import make_test_read

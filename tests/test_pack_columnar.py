@@ -5,13 +5,13 @@ Python-fallback columnar inputs)."""
 import numpy as np
 import pytest
 
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.pack.columnar import pack_tile_columnar, pack_tiles_columnar
-from guacamole_tpu.pack.fast import pack_tile_fast
-from guacamole_tpu.pack.tiles import pack_tiles
-from guacamole_tpu.reads.read import InputFilters
-from guacamole_tpu.runtime.columnar import (
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.pack.columnar import pack_tile_columnar, pack_tiles_columnar
+from guacamole.pack.fast import pack_tile_fast
+from guacamole.pack.tiles import pack_tiles
+from guacamole.reads.read import InputFilters
+from guacamole.runtime.columnar import (
     columnar_from_reads,
     decode_bam_columnar,
     native_available,
@@ -109,7 +109,7 @@ def test_native_pack_tiles_columnar(resources_dir):
 
 @pytest.mark.skipif(not native_available(), reason="native runtime not built")
 def test_native_packed_nib_matches_python_packing(resources_dir):
-    from guacamole_tpu.ops.dispatch import pack_nibbles
+    from guacamole.ops.dispatch import pack_nibbles
 
     path = resource_path("chrM.sorted.bam")
     cols = decode_bam_columnar(path)
@@ -156,8 +156,8 @@ def test_screen_only_tiles_match_full(resources_dir):
 
 @pytest.mark.skipif(not native_available(), reason="native runtime not built")
 def test_screen_tiles_csr_encoding(resources_dir):
-    from guacamole_tpu.ops.dispatch import screen_tile_for
-    from guacamole_tpu.ops.kernels import tile_stats
+    from guacamole.ops.dispatch import screen_tile_for
+    from guacamole.ops.kernels import tile_stats
 
     path = resource_path("chrM.sorted.bam")
     cols = decode_bam_columnar(path)
@@ -186,11 +186,11 @@ def test_native_counts_match_device_screen(resources_dir):
     """The screen-mode packer's [L, K] counts by-product and the native
     candidate rule (the host fallback screen) must equal the device CSR
     screen exactly — counts, candidates, and the compact form."""
-    from guacamole_tpu.ops.dispatch import (
+    from guacamole.ops.dispatch import (
         host_counts_candidates,
         screen_csr_launch,
     )
-    from guacamole_tpu.runtime.native import counts_screen_native
+    from guacamole.runtime.native import counts_screen_native
 
     path = resource_path("chrM.sorted.bam")
     cols = decode_bam_columnar(path)
@@ -226,7 +226,7 @@ def test_covered_loci_native_matches_python(resources_dir):
     including multi-range and empty cases."""
     from unittest import mock
 
-    from guacamole_tpu.pack import columnar as pc
+    from guacamole.pack import columnar as pc
 
     path = resource_path("chrM.sorted.bam")
     cols = decode_bam_columnar(path).select(
@@ -242,7 +242,7 @@ def test_covered_loci_native_matches_python(resources_dir):
     for ranges in cases:
         native = pc.covered_loci(cols, contig_id, ranges)
         with mock.patch(
-            "guacamole_tpu.runtime.native.covered_loci_native",
+            "guacamole.runtime.native.covered_loci_native",
             return_value=None,
         ):
             python = pc.covered_loci(cols, contig_id, ranges)
@@ -251,7 +251,7 @@ def test_covered_loci_native_matches_python(resources_dir):
 
 def test_host_screen_env_override(monkeypatch):
     """GUAC_HOST_SCREEN pins the screen implementation choice."""
-    from guacamole_tpu.ops import dispatch
+    from guacamole.ops import dispatch
 
     monkeypatch.setenv("GUAC_HOST_SCREEN", "1")
     assert dispatch.screen_on_host() is True
@@ -264,7 +264,7 @@ def test_read_scan_window_covers_all_overlaps():
     every query, and degrade to None on non-grouped/unsorted columns."""
     import numpy as np
 
-    from guacamole_tpu.runtime.columnar import ColumnarReads
+    from guacamole.runtime.columnar import ColumnarReads
 
     def cols_of(ref_id, start, end):
         n = len(start)
@@ -326,7 +326,7 @@ def test_native_ll_screen_superset_of_exact_calls(resources_dir):
     """The packer-inline germline likelihood screen (ll_candidates, f64
     factored rule) must flag every locus the exact f64 confirm emits —
     the same superset contract the device screens carry."""
-    from guacamole_tpu.callers.germline_standard import calls_from_tile_rows
+    from guacamole.callers.germline_standard import calls_from_tile_rows
 
     path = resource_path("chrM.sorted.bam")
     cols = decode_bam_columnar(path)
@@ -359,12 +359,12 @@ def test_native_tumor_screen_superset_of_exact_somatic(resources_dir):
     flag every locus the exact somatic kernel emits. The fixture's reads
     span a 233 Mbp contig sparsely, so the tile and the oracle loop run
     over COVERED loci only."""
-    from guacamole_tpu.callers.somatic_standard import (
+    from guacamole.callers.somatic_standard import (
         find_potential_variant_at_locus,
     )
-    from guacamole_tpu.callers.source import ReadSource
-    from guacamole_tpu.pack.columnar import covered_loci
-    from guacamole_tpu.runtime.columnar import columnar_from_reads
+    from guacamole.callers.source import ReadSource
+    from guacamole.pack.columnar import covered_loci
+    from guacamole.runtime.columnar import columnar_from_reads
 
     pair = "synthetic.challenge.set1.%s.v2.withMDTags.chr2.csnp.sam"
     filt = InputFilters.create(non_duplicate=True, has_mdtag=True)

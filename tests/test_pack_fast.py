@@ -4,11 +4,11 @@ the reference (slow, oracle-validated) packer on every fixture."""
 import numpy as np
 import pytest
 
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.pack.fast import pack_tile_fast
-from guacamole_tpu.pack.tiles import pack_tile
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.pack.fast import pack_tile_fast
+from guacamole.pack.tiles import pack_tile
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 from fixtures import make_test_read
@@ -99,7 +99,7 @@ def test_fast_sparse_loci():
 
 
 def test_fast_with_reference(resources_dir):
-    from guacamole_tpu.gio.fasta import ReferenceGenome
+    from guacamole.gio.fasta import ReferenceGenome
 
     ref = ReferenceGenome.from_fasta(resource_path("sample.fasta"))
     contig = next(iter(ref.contigs.keys()))
@@ -115,7 +115,7 @@ def test_sparse_tile_read_index_multi_contig():
     (full-list positions) even when the object path filters to one contig
     first (regression: subset-relative indices returned the wrong read,
     crashing pileup_from_tile_row on multi-contig inputs)."""
-    from guacamole_tpu.callers.source import ReadSource
+    from guacamole.callers.source import ReadSource
 
     reads = [
         make_test_read("ACGTACGT", "8M", "8", 0, chrom="chrA", sample_name="alpha"),

@@ -1,20 +1,20 @@
 """Pileup engine tests: element advance through M/I/D/N/S/H/=/X CIGARs.
 
 Scenario coverage ported from the reference's pileup suite behaviors
-(cf. /root/reference .../pileup/PileupSuite.scala:51-430).
+(cf. upstream .../pileup/PileupSuite.scala:51-430).
 """
 
 import pytest
 
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.pileup.element import (
+from guacamole.gio.load import load_read_set
+from guacamole.pileup.element import (
     AlignmentKind,
     InvalidCigarElementError,
     PileupElement,
 )
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.utils import bases as Bases
-from guacamole_tpu.variants.allele import Allele
+from guacamole.pileup.pileup import Pileup
+from guacamole.utils import bases as Bases
+from guacamole.variants.allele import Allele
 
 from conftest import resource_path
 from fixtures import make_test_read

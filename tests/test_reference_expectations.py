@@ -1,6 +1,6 @@
 """Full-CLI reference-expectation gates: the known positive/negative
 somatic loci of the reference's SomaticStandardCallerSuite
-(cf. /root/reference .../commands/SomaticStandardCallerSuite.scala:54-115)
+(cf. upstream .../commands/SomaticStandardCallerSuite.scala:54-115)
 and the germline-threshold #302 regression, asserted at the OUTPUT level —
 VCF records with CHROM/POS/REF/ALT/GT/AD/DP/GQ — through the same CLI a
 user runs. Unlike the self-golden snapshots (determinism gates), these
@@ -33,7 +33,7 @@ STANDARD_BASES = set("ACGT")
 def run_cli(args, timeout=600):
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     result = subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli"] + args,
+        [sys.executable, "-m", "guacamole.cli"] + args,
         env=env, capture_output=True, text=True, timeout=timeout,
     )
     assert result.returncode == 0, result.stderr[-2000:]

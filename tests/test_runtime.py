@@ -4,9 +4,9 @@ the Python decoder + event builder field-for-field."""
 import numpy as np
 import pytest
 
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.reads.read import InputFilters
-from guacamole_tpu.runtime.columnar import (
+from guacamole.gio.load import load_read_set
+from guacamole.reads.read import InputFilters
+from guacamole.runtime.columnar import (
     columnar_from_reads,
     decode_bam_columnar,
     native_available,
@@ -130,8 +130,8 @@ def test_build_events_native_matches_oracle(fixture, resources_dir):
     """columnar_from_reads(native=True) — the SAM/object ingest path that
     fills event arrays with guac_build_events — must be bit-identical to
     the pure-Python oracle (native=False)."""
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.runtime.native import load_library
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.runtime.native import load_library
 
     # A stale libguac_runtime.so without guac_build_events would make
     # columnar_from_reads(native=True) silently fall back to the oracle,
@@ -173,7 +173,7 @@ def test_build_events_native_matches_oracle(fixture, resources_dir):
 def test_decode_sam_native_matches_oracle(fixture, resources_dir):
     """The native SAM text decoder must produce the same columnar content
     as the Python loader + oracle event builder (mapped reads)."""
-    from guacamole_tpu.runtime.columnar import decode_sam_columnar
+    from guacamole.runtime.columnar import decode_sam_columnar
 
     native = decode_sam_columnar(resource_path(fixture))
     assert native is not None
@@ -230,7 +230,7 @@ def _sam_line(qname="r", flag=0, pos=100, cigar="10M", seq="ACGTACGTAC",
 
 
 def _decode_sam_text(tmp_path, text):
-    from guacamole_tpu.runtime.native import decode_sam_native
+    from guacamole.runtime.native import decode_sam_native
 
     p = tmp_path / "hostile.sam"
     p.write_text(text)
@@ -278,7 +278,7 @@ def test_sam_low_qual_char_rejected(tmp_path):
 
 
 def test_base_quality_string_low_char_raises():
-    from guacamole_tpu.reads.read import base_quality_string_to_bytes
+    from guacamole.reads.read import base_quality_string_to_bytes
 
     with pytest.raises(ValueError):
         base_quality_string_to_bytes("III III", 7)

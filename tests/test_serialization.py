@@ -1,7 +1,7 @@
 """Serialization round-trips.
 
 The reference ships Kryo serializers for every shuffled type
-(cf. /root/reference .../Serialization.scala:27-51, MappedReadSerializer);
+(cf. upstream .../Serialization.scala:27-51, MappedReadSerializer);
 in this framework host-side objects cross process/host boundaries via
 pickle and tiles via numpy buffers — these tests pin that both round-trip
 losslessly (the ReadSetSuite serialize/deserialize analog)."""
@@ -11,13 +11,13 @@ import pickle
 import numpy as np
 import pytest
 
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import parse_loci
-from guacamole_tpu.pack.tiles import pack_tile
-from guacamole_tpu.reads.read import InputFilters
-from guacamole_tpu.variants.allele import Allele, Genotype
-from guacamole_tpu.variants.called import CalledAllele
-from guacamole_tpu.variants.evidence import AlleleEvidence
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import parse_loci
+from guacamole.pack.tiles import pack_tile
+from guacamole.reads.read import InputFilters
+from guacamole.variants.allele import Allele, Genotype
+from guacamole.variants.called import CalledAllele
+from guacamole.variants.evidence import AlleleEvidence
 
 from conftest import resource_path
 from fixtures import make_paired_read, make_test_read
@@ -89,7 +89,7 @@ def test_called_allele_roundtrip():
 def test_loci_structures_roundtrip():
     loci = parse_loci("chr1:100-200,chr2:5-10").result()
     assert roundtrip(loci) == loci
-    from guacamole_tpu.loci.locimap import LociMapBuilder
+    from guacamole.loci.locimap import LociMapBuilder
 
     m = LociMapBuilder().put("chr1", 0, 10, 3).put("chr1", 10, 20, 4).result()
     assert roundtrip(m) == m

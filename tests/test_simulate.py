@@ -11,7 +11,7 @@ import sys
 import numpy as np
 import pytest
 
-from guacamole_tpu.utils.simulate import (
+from guacamole.utils.simulate import (
     READ_LEN,
     make_scale_fixture,
     overflow_clump,
@@ -43,8 +43,8 @@ def test_generated_sam_parses_and_mdref_matches_planted_reference(
 ):
     """Every read's MD-reconstructed reference must equal the planted
     reference over the read's span — through the native SAM decoder."""
-    from guacamole_tpu.runtime.columnar import decode_sam_columnar
-    from guacamole_tpu.utils.simulate import simulate_reference
+    from guacamole.runtime.columnar import decode_sam_columnar
+    from guacamole.utils.simulate import simulate_reference
 
     out, manifest = small_fixture
     cols = decode_sam_columnar(os.path.join(out, manifest["files"]["germline"]))
@@ -78,7 +78,7 @@ def test_germline_threshold_recovers_planted_snvs(small_fixture, tmp_path):
     vcf = str(tmp_path / "sim.vcf")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli", "germline-threshold",
+        [sys.executable, "-m", "guacamole.cli", "germline-threshold",
          "--reads", os.path.join(out, manifest["files"]["germline"]),
          "--threshold", "25",
          "--out", vcf],
@@ -113,7 +113,7 @@ def test_somatic_pair_recovers_planted_somatic_snvs(small_fixture, tmp_path):
     vcf = str(tmp_path / "som.vcf")
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
-        [sys.executable, "-m", "guacamole_tpu.cli", "somatic-standard",
+        [sys.executable, "-m", "guacamole.cli", "somatic-standard",
          "--tumor-reads", os.path.join(out, manifest["files"]["tumor"]),
          "--normal-reads", os.path.join(out, manifest["files"]["normal"]),
          "--odds", "20",
@@ -142,10 +142,10 @@ def test_somatic_pair_recovers_planted_somatic_snvs(small_fixture, tmp_path):
 def test_overflow_loci_present_and_exercised(small_fixture):
     """The overflow clumps must actually push >K distinct alleles at their
     anchor loci so the bench exercises the exact-host fallback."""
-    from guacamole_tpu.callers.source import ReadSource
-    from guacamole_tpu.gio.load import load_read_set
-    from guacamole_tpu.loci.lociset import LociSet
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole.callers.source import ReadSource
+    from guacamole.gio.load import load_read_set
+    from guacamole.loci.lociset import LociSet
+    from guacamole.reads.read import InputFilters
 
     out, manifest = small_fixture
     path = os.path.join(out, manifest["files"]["germline"])
@@ -180,7 +180,7 @@ def test_overflow_loci_present_and_exercised(small_fixture):
 
 def test_deep_band_depth_reached(small_fixture):
     """The spike band must actually reach its target depth (scaled)."""
-    from guacamole_tpu.runtime.columnar import decode_sam_columnar
+    from guacamole.runtime.columnar import decode_sam_columnar
 
     out, manifest = small_fixture
     cols = decode_sam_columnar(
@@ -204,12 +204,12 @@ def test_sv_fixture_planted_deletions_recovered(tmp_path):
     """The paired-read SV fixture's planted het deletions must be
     recovered by the structural-variant pipeline (discordant insert
     pairs -> compatibility graph -> cliques), each within 200 bp."""
-    from guacamole_tpu.callers.structural_variant import (
+    from guacamole.callers.structural_variant import (
         call_structural_variants,
     )
-    from guacamole_tpu.gio.load import load_read_set
-    from guacamole_tpu.reads.read import InputFilters, PairedMappedRead
-    from guacamole_tpu.utils.simulate import make_sv_fixture
+    from guacamole.gio.load import load_read_set
+    from guacamole.reads.read import InputFilters, PairedMappedRead
+    from guacamole.utils.simulate import make_sv_fixture
 
     manifest = make_sv_fixture(
         str(tmp_path), length=300_000, depth=18,

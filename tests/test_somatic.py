@@ -1,17 +1,17 @@
 """somatic-standard caller tests.
 
 Golden positive/negative loci and indel allele expectations ported from the
-reference suite (cf. /root/reference
+reference suite (cf. upstream
 .../commands/SomaticStandardCallerSuite.scala:38-264).
 """
 
 import pytest
 
-from guacamole_tpu.callers.somatic_standard import find_potential_variant_at_locus
-from guacamole_tpu.filters.somatic_filters import apply_somatic_filters
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.reads.read import InputFilters
+from guacamole.callers.somatic_standard import find_potential_variant_at_locus
+from guacamole.filters.somatic_filters import apply_somatic_filters
+from guacamole.gio.load import load_read_set
+from guacamole.pileup.pileup import Pileup
+from guacamole.reads.read import InputFilters
 
 from conftest import resource_path
 from fixtures import make_test_read
@@ -218,10 +218,10 @@ def test_tile_row_somatic_bitwise(resources_dir):
 
     import numpy as np
 
-    from guacamole_tpu.callers.somatic_standard import (
+    from guacamole.callers.somatic_standard import (
         somatic_calls_from_tile_rows,
     )
-    from guacamole_tpu.callers.source import ReadSource
+    from guacamole.callers.source import ReadSource
 
     tumor, normal = load_tumor_normal(
         "tumor.chr20.tough.sam", "normal.chr20.tough.sam"
@@ -281,11 +281,11 @@ def test_native_tumor_screen_matches_object_path(resources_dir):
     """somatic call_variants through the columnar/native path (tumor
     likelihood_mapq screen) must produce identical calls to the object-read
     path (counting-screen fallback) over a whole fixture region."""
-    from guacamole_tpu.callers.somatic_standard import call_variants
-    from guacamole_tpu.callers.source import ReadSource
-    from guacamole_tpu.loci.lociset import LociSetBuilder
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
-    from guacamole_tpu.runtime.columnar import columnar_from_reads
+    from guacamole.callers.somatic_standard import call_variants
+    from guacamole.callers.source import ReadSource
+    from guacamole.loci.lociset import LociSetBuilder
+    from guacamole.loci.partition import partition_loci_uniformly
+    from guacamole.runtime.columnar import columnar_from_reads
 
     tumor, normal = load_tumor_normal(
         "tumor.chr20.tough.sam", "normal.chr20.tough.sam"
@@ -320,11 +320,11 @@ def test_row_pair_batch_equals_single_rows(resources_dir):
     """somatic_calls_from_row_pairs over ALL candidate rows at once must
     equal per-row somatic_calls_from_tile_rows, with and without the
     multi-allelic pileup filter."""
-    from guacamole_tpu.callers.somatic_standard import (
+    from guacamole.callers.somatic_standard import (
         somatic_calls_from_row_pairs,
         somatic_calls_from_tile_rows,
     )
-    from guacamole_tpu.callers.source import ReadSource
+    from guacamole.callers.source import ReadSource
 
     tumor, normal = load_tumor_normal(
         "tumor.chr20.tough.sam", "normal.chr20.tough.sam"
@@ -386,7 +386,7 @@ def test_normal_variants_total_uses_jvm_fold():
     # And the somatic kernel's fold is the naive one: reconstruct via a
     # tiny pileup pair whose normal enumeration hits the compensation
     # (covered end-to-end by the 150-seed fuzz; this is the direct pin).
-    from guacamole_tpu.likelihood import _normalization_log_total
+    from guacamole.likelihood import _normalization_log_total
     import math
     # _normalization_log_total also folds naively:
     lls = [math.log(p) for p in probs]

@@ -5,7 +5,7 @@ must produce calls identical to the whole-file load path.
 Together with tests/test_germline_threshold.py::test_streaming_matches_
 whole_file, this pins VERDICT items #7 (depth-balanced streaming) and #9
 (streaming for all callers). Match: per-task BAM-index pushdown
-(/root/reference .../reads/Read.scala:395-406) under the reference's
+(upstream .../reads/Read.scala:395-406) under the reference's
 default depth-balanced partitioning (DistributedUtil.scala:41-48)."""
 
 import os
@@ -31,8 +31,8 @@ def cache_dir():
 
 
 def _filters(expr="all"):
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.reads.read import InputFilters
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.reads.read import InputFilters
 
     return InputFilters.create(
         overlaps_loci=parse_loci(expr), non_duplicate=True, has_mdtag=True
@@ -42,10 +42,10 @@ def _filters(expr="all"):
 def test_index_depth_partitions_cover_loci_and_balance(cache_dir):
     """Index-depth-balanced partitions must cover the loci set exactly,
     and weight tasks by byte density (not loci length)."""
-    from guacamole_tpu.callers.streaming import ensure_bam_index
-    from guacamole_tpu.gio.bam import BamFile
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_by_index_depth
+    from guacamole.callers.streaming import ensure_bam_index
+    from guacamole.gio.bam import BamFile
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_by_index_depth
 
     path = resource_path(CHRM)
     bai = ensure_bam_index(path)
@@ -60,13 +60,13 @@ def test_index_depth_partitions_cover_loci_and_balance(cache_dir):
 
 
 def test_streaming_standard_matches_whole_file(cache_dir):
-    from guacamole_tpu.callers.common import load_read_source
-    from guacamole_tpu.callers.germline_standard import (
+    from guacamole.callers.common import load_read_source
+    from guacamole.callers.germline_standard import (
         call_variants,
         call_variants_streaming,
     )
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_uniformly
 
     filters = _filters()
     path = resource_path(CHRM)
@@ -93,14 +93,14 @@ def test_streaming_standard_depth_balanced_partitions(cache_dir):
     """Streaming with INDEX-depth-balanced partitions (the new default
     configuration) must still equal the whole-file run — partitioning is
     load balance only, never semantics."""
-    from guacamole_tpu.callers.common import load_read_source
-    from guacamole_tpu.callers.germline_standard import (
+    from guacamole.callers.common import load_read_source
+    from guacamole.callers.germline_standard import (
         call_variants,
         call_variants_streaming,
     )
-    from guacamole_tpu.callers.streaming import ensure_bam_index
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import (
+    from guacamole.callers.streaming import ensure_bam_index
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import (
         partition_loci_by_index_depth,
         partition_loci_uniformly,
     )
@@ -133,13 +133,13 @@ def test_streaming_somatic_matches_whole_file(cache_dir):
     file as tumor and normal, no somatic call can survive (normal carries
     every tumor variant), but the full screen -> sparse-confirm pipeline
     runs; the streaming and whole-file paths must agree exactly."""
-    from guacamole_tpu.callers.common import load_read_source
-    from guacamole_tpu.callers.somatic_standard import (
+    from guacamole.callers.common import load_read_source
+    from guacamole.callers.somatic_standard import (
         call_variants,
         call_variants_streaming,
     )
-    from guacamole_tpu.loci.lociset import parse_loci
-    from guacamole_tpu.loci.partition import partition_loci_uniformly
+    from guacamole.loci.lociset import parse_loci
+    from guacamole.loci.partition import partition_loci_uniformly
 
     filters = _filters()
     path = resource_path(GATK)
@@ -165,7 +165,7 @@ def test_cli_default_config_streams(cache_dir, tmp_path, capsys):
     """The DEFAULT CLI configuration (depth-balanced, accuracy 250) must
     take the streaming path for BAM inputs — no whole-file load message —
     and produce the golden calls."""
-    from guacamole_tpu.cli import main
+    from guacamole.cli import main
 
     out = tmp_path / "out.vcf"
     rc = main(
@@ -195,7 +195,7 @@ def test_compare_vcf_records(tmp_path):
     """The record-level VCF comparator (concordance.compare_vcf_records):
     identical call sets with different headers/QUAL compare equal; any
     CHROM/POS/REF/ALT/GT difference is surfaced; GT order is normalized."""
-    from guacamole_tpu.concordance import compare_vcf_records
+    from guacamole.concordance import compare_vcf_records
 
     a = tmp_path / "a.vcf"
     b = tmp_path / "b.vcf"

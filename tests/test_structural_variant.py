@@ -3,7 +3,7 @@ median/MAD, pair compatibility, graph construction, clique growth)."""
 
 import pytest
 
-from guacamole_tpu.callers.structural_variant import (
+from guacamole.callers.structural_variant import (
     GenomeRange,
     MedianStats,
     PairGraph,
@@ -13,7 +13,7 @@ from guacamole_tpu.callers.structural_variant import (
     get_exceptional_reads,
     median_stats,
 )
-from guacamole_tpu.reads.read import MateAlignmentProperties, PairedMappedRead
+from guacamole.reads.read import MateAlignmentProperties, PairedMappedRead
 
 from fixtures import make_test_read
 
@@ -198,7 +198,7 @@ def test_columnar_fast_path_equals_object_path(tmp_path):
     same threshold, same exceptional set, same called ranges."""
     import numpy as np
 
-    from guacamole_tpu.callers.structural_variant import (
+    from guacamole.callers.structural_variant import (
         call_structural_variants,
         exceptional_from_columnar,
         get_exceptional_reads,
@@ -206,13 +206,13 @@ def test_columnar_fast_path_equals_object_path(tmp_path):
         oriented_insert_size,
         pairs_in_range,
     )
-    from guacamole_tpu.gio.load import load_read_set
-    from guacamole_tpu.reads.read import InputFilters, PairedMappedRead
-    from guacamole_tpu.runtime.columnar import (
+    from guacamole.gio.load import load_read_set
+    from guacamole.reads.read import InputFilters, PairedMappedRead
+    from guacamole.runtime.columnar import (
         decode_sam_columnar,
         native_available,
     )
-    from guacamole_tpu.utils.simulate import make_sv_fixture
+    from guacamole.utils.simulate import make_sv_fixture
 
     if not native_available():
         import pytest
@@ -266,13 +266,13 @@ def test_sv_simulator_zygosity_and_noise(tmp_path):
     fragments are discordant, vs ~half for het) and noise fragments plant
     isolated discordant pairs; the caller still recovers het and hom
     deletions within tolerance (StructuralVariantCaller.scala:102-264)."""
-    from guacamole_tpu.callers.structural_variant import (
+    from guacamole.callers.structural_variant import (
         call_structural_variants,
         get_exceptional_reads,
     )
-    from guacamole_tpu.gio.load import load_read_set
-    from guacamole_tpu.reads.read import InputFilters, PairedMappedRead
-    from guacamole_tpu.utils.simulate import make_sv_fixture
+    from guacamole.gio.load import load_read_set
+    from guacamole.reads.read import InputFilters, PairedMappedRead
+    from guacamole.utils.simulate import make_sv_fixture
 
     manifest = make_sv_fixture(
         str(tmp_path), length=400_000, depth=16,

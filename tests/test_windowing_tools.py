@@ -3,23 +3,23 @@
 
 import pytest
 
-from guacamole_tpu.callers.vaf_histogram import (
+from guacamole.callers.vaf_histogram import (
     VariantLocus,
     build_mixture_model,
     generate_vaf_histogram,
     variant_loci_from_reads,
 )
-from guacamole_tpu.callers.variant_support import (
+from guacamole.callers.variant_support import (
     loci_from_variants,
     pileup_allele_counts,
 )
-from guacamole_tpu.gio.load import load_read_set
-from guacamole_tpu.loci.lociset import LociSet, parse_loci
-from guacamole_tpu.loci.partition import partition_loci_uniformly
-from guacamole_tpu.pileup.pileup import Pileup
-from guacamole_tpu.reads.read import InputFilters
-from guacamole_tpu.utils import bases as Bases
-from guacamole_tpu.windowing import (
+from guacamole.gio.load import load_read_set
+from guacamole.loci.lociset import LociSet, parse_loci
+from guacamole.loci.partition import partition_loci_uniformly
+from guacamole.pileup.pileup import Pileup
+from guacamole.reads.read import InputFilters
+from guacamole.utils import bases as Bases
+from guacamole.windowing import (
     SlidingWindow,
     advance_multiple_windows,
     split_iterator,
@@ -195,7 +195,7 @@ class TestVariantSupport:
     def test_tile_counts_equal_oracle_counts(self, gatk_reads):
         """The tile/device counting path must equal per-pileup oracle counts
         across a whole region."""
-        from guacamole_tpu.utils import bases as Bases
+        from guacamole.utils import bases as Bases
 
         loci = LociSet.of("20", 10006800, 10007200)
         tile_counts = {
